@@ -1,4 +1,4 @@
-"""cvids_tpu — TPU-native collaborative visual-inertial SLAM framework.
+"""cvids_tpu — collaborative visual-inertial SLAM framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the CVIDS
 reference (collaborative multi-agent VI-SLAM server + dense TSDF mapping):

@@ -2,7 +2,7 @@
 
 Parity with the reference's calibration tooling: camodocal's chessboard
 detector (`/root/reference/camera_model/src/chessboard/Chessboard.cc`) and
-the `intrinsic_calib.cc` CLI. The detector here is TPU-shaped: inner corners
+the `intrinsic_calib.cc` CLI. The detector here is a fixed-shape array program: inner corners
 of a chessboard are saddle points of intensity, so the response map is the
 negative Hessian determinant (−(Ixx·Iyy − Ixy²), one fused XLA pass), peaks
 are taken by masked top-k, ordered into the (rows × cols) grid host-side via
@@ -29,7 +29,7 @@ def chessboard_response(img: jax.Array, sigma: float = 1.0,
     """Inner-corner response map (H, W), ring-based (ChESS-style).
 
     Samples a 16-point ring around every pixel (pure `roll` shifts — one
-    fused VPU pass) and projects it onto angular harmonics: an inner
+    fused elementwise pass) and projects it onto angular harmonics: an inner
     chessboard corner alternates dark/light TWICE around the ring (strong
     period-2 component), while edges and single-square outer corners
     alternate once (period-1). Response = |period-2|² − |period-1|², which

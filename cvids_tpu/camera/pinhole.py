@@ -1,6 +1,6 @@
 """Pinhole + radial-tangential camera model, batched and jit-friendly.
 
-TPU-native equivalent of the reference's `ServerCamera`
+Batched equivalent of the reference's `ServerCamera`
 (`/root/reference/server_pose_graph/src/server_camera.cpp:21-121`) and the
 camodocal `PinholeCamera` (`/root/reference/camera_model/...`): a plain pytree
 of intrinsics with vectorized project / lift operations. The iterative

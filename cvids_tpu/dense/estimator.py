@@ -48,10 +48,9 @@ class DenseConfig:
     # per-pixel SGM penalty modulation from the reference image's texture
     # (`StereoMapper::InitReference`, `sgm_stereo_mapper.cpp:55-123`)
     use_penalty_map: bool = True
-    # cost-volume storage/compute dtype. bfloat16 halves the HBM traffic of
-    # the (H, W, D) volumes (the pipeline is bandwidth-bound); WTA depth
-    # indices differ from fp32 by <0.01 bins (see test_dense bf16 check).
-    # The Bayes filter always runs fp32.
+    # cost-volume storage dtype. bfloat16 halves the memory traffic of the
+    # (H, W, D) volumes; sampling, AD and the WTA parabola run in fp32, and
+    # the Bayes filter always runs fp32.
     dtype: str = "bfloat16"
 
     @property
@@ -161,23 +160,18 @@ def splat_sparse(cfg: DenseConfig, uv: jax.Array, inv_depth: jax.Array,
     return bias
 
 
-@partial(jax.jit, static_argnums=0, static_argnames=("banded_warp",))
+@partial(jax.jit, static_argnums=0)
 def fuse_measurement(cfg: DenseConfig, state: DenseState, meas_img: jax.Array,
-                     a_mat: jax.Array, b_vec: jax.Array,
-                     banded_warp: bool | None = None) -> DenseState:
+                     a_mat: jax.Array, b_vec: jax.Array) -> DenseState:
     """Fuse one measurement frame (`FuseNewFrameSGM`, `depth_estimator.cpp:
     210-361`): cost slice -> running mean -> (bias + SGM + WTA) -> filter.
 
     a_mat = K_m R_mr K_r^-1, b_vec = K_m t_mr (reference-to-measurement).
-    `banded_warp`: static choice of the alignment-warp kernel (see
-    `ops.costvolume.plane_sweep_cost`); hosts with the numpy a_mat in hand
-    should gate it on `costvolume.warp_shift_bounds_np`.
     """
     inv_depths = jnp.asarray(cfg.inv_depths)
     c, v = costvolume.plane_sweep_cost(state.ref_img, meas_img.astype(jnp.float32),
                                        a_mat, b_vec, inv_depths,
-                                       out_dtype=cfg.jdtype,
-                                       banded_warp=banded_warp)
+                                       out_dtype=cfg.jdtype)
     mean_cost, count = costvolume.accumulate_cost(state.mean_cost, state.count, c, v)
 
     # SGM input: unobserved hypotheses get a high constant so they can't win

@@ -1,6 +1,6 @@
 """Batched SO(3) / quaternion / Euler utilities.
 
-TPU-first re-design of the reference's Euler-angle algebra
+Batched re-design of the reference's Euler-angle algebra
 (`/root/reference/server_pose_graph/include/utility/server_utility.h:70-183`):
 everything here is dtype-polymorphic, shape-polymorphic over leading batch
 dimensions, and safe under `jax.jit` / `vmap` / `grad`.

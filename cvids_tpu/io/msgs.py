@@ -4,7 +4,7 @@ Mirrors `/root/reference/agent_msg/msg/AgentMsg.msg:1-14`: per keyframe the
 agent sends its IMU pose, camera extrinsics, windowed map points (3D in the
 agent's local world, normalized 2D, feature ids, 256-bit BRIEF descriptors)
 and extra full-image FAST features + descriptors for loop-closure matching.
-Descriptors travel as uint32[8] (the natural TPU layout; the reference packs
+Descriptors travel as uint32[8] (the reference packs
 4×int64 per descriptor).
 """
 

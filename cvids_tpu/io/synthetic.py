@@ -220,3 +220,43 @@ def imu_slices(seq: SyntheticSequence, max_samples: int = 128):
         out_dt[i, :n] = ts_next - ts
         out_v[i, :n] = True
     return out_g, out_a, out_dt, out_v
+
+
+def window_ba_problem(num_landmarks: int = 150, seed: int = 0):
+    """(WindowState, WindowMeasurements) of the agent window-BA problem: 21
+    keyframes at 2 Hz on a 5 m circle with exact IMU, `num_landmarks`
+    landmarks, keyframe positions and landmarks perturbed by 0.1 m. At 150
+    landmarks this is the BASELINE.json CPU-ladder config ("20 KF / 150
+    landmarks")."""
+    import jax
+    import jax.numpy as jnp
+
+    from ..geometry.hostmath import quat_to_matrix_np
+    from ..vio import imu as imu_mod
+    from ..vio import window_ba as ba
+
+    rng = np.random.default_rng(seed)
+    traj = Trajectory.circle(radius=5.0, omega=0.5)
+    seq = generate_sequence(traj, duration=10.0, kf_rate=2.0,
+                            num_landmarks=num_landmarks, seed=seed)
+    k = len(seq.times_kf)
+    nl = seq.landmarks.shape[0]
+    f32 = lambda x: jnp.asarray(x, jnp.float32)
+    g, a, dts, v = imu_slices(seq)
+    pre = jax.vmap(lambda gg, aa, dd, vv: imu_mod.preintegrate(
+        f32(gg), f32(aa), f32(dd), jnp.zeros(3), jnp.zeros(3),
+        sample_valid=jnp.asarray(vv)))(g, a, dts, v)
+    r_cb = jnp.asarray([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    state = ba.WindowState(
+        p=f32(seq.p_gt + rng.normal(0, 0.1, (k, 3))), q=f32(seq.q_gt),
+        v=f32(seq.v_gt), bg=jnp.zeros((k, 3)), ba=jnp.zeros((k, 3)),
+        lm=f32(seq.landmarks + rng.normal(0, 0.1, (nl, 3))),
+        kf_valid=jnp.ones(k, bool), lm_valid=jnp.asarray(seq.vis.sum(0) >= 2))
+    r0 = quat_to_matrix_np(seq.q_gt[0])
+    meas = ba.WindowMeasurements(
+        obs=f32(np.nan_to_num(seq.obs)), vis=jnp.asarray(seq.vis),
+        pre=pre, pre_valid=jnp.ones(k - 1, bool), r_cb=r_cb, p_bc=jnp.zeros(3),
+        pix_weight=460.0, huber_delta=5.0, bias_weight=10.0, prior=None,
+        anchor_p=f32(seq.p_gt[0]),
+        anchor_yaw=jnp.asarray(np.arctan2(r0[1, 0], r0[0, 0]), jnp.float32))
+    return state, meas

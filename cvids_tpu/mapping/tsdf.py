@@ -7,7 +7,7 @@ threads becomes a fixed-capacity struct-of-arrays chunk pool — (C, 8, 8, 8)
 sdf/weight/color tensors — plus a host-side coordinate->slot dict for
 allocation. Integration is one jitted kernel over *all* active chunks at
 once: every voxel of every in-frustum chunk projects into the depth image in
-a single fused pass (chunks × 512 voxels of pure VPU work), replacing the
+a single fused pass (chunks × 512 voxels of elementwise work), replacing the
 reference's per-chunk thread pool.
 
 Defaults mirror the reference launch config (`chisel_ros/launch/

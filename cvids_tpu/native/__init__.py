@@ -2,7 +2,7 @@
 
 The reference keeps these host-side in C++ (`include/fmc/*`,
 `ThirdParty/DBoW/TemplatedDatabase.h`) because they are tiny and irregular —
-the wrong shape for a TPU kernel. Same decision here: a small C++ library,
+the wrong shape for an accelerator kernel. Same decision here: a small C++ library,
 built on demand with `make`, loaded with ctypes. Every entry point has a
 pure-Python fallback so the package works without a compiler.
 """

@@ -1,6 +1,6 @@
 """Plane-sweep absolute-difference cost volume.
 
-TPU-native redesign of the reference's `ADCalcCostKernel`
+Redesign of the reference's `ADCalcCostKernel`
 (`/root/reference/server_pose_graph/src/dense_mapping/calc_cost.cu:20-233`):
 for every pixel and every inverse-depth hypothesis, warp into the measurement
 frame via the per-hypothesis homography  x₂ ~ A x₁ + b·ρ  (A = K₂R₂₁K₁⁻¹,
@@ -8,273 +8,81 @@ b = K₂t₂₁), sample bilinearly, and accumulate an absolute-difference cost
 averaged over a 3×3 patch with a running mean across measurement frames and
 a -1 sentinel for out-of-view pixels.
 
-Differences from the CUDA kernel, chosen for TPU shape:
-- the 9-tap patch AD (center + 4 + 4 diagonal taps of the *warped* image,
-  `calc_cost.cu:96-223`) becomes a 3×3 box filter over the per-pixel AD
-  image — identical for locally-translational warps and one fused VPU pass;
-- the 128-hypothesis axis is the innermost (lane) dimension, so the volume
-  (H, W, D) tiles the VPU/MXU naturally;
-- the warp itself is gather-free: per-element gathers run at ~1 element/cycle
-  on TPU (measured 0.35-1.8 s for the 350M taps of a full sweep), so the
-  sweep is re-derived as  meas(A x + b ρ) = meas_aligned((x + cρ)/(1+c₂ρ))
-  with meas_aligned = meas∘A (ONE image-sized bilinear warp) and c = A⁻¹b.
-  Each depth plane is then a uniform scale+translation — separable — and the
-  whole 128-plane sweep becomes two batched banded-interpolation matmuls on
-  the MXU (~90 GFLOP ≈ milliseconds) instead of 350M random taps.
+The sweep is the reference's own shape: one bilinear gather per (pixel,
+hypothesis) from the measurement image, which stays cache-resident. The
+volume is (H, W, D) with the hypotheses innermost. One difference from the
+CUDA kernel: the 9-tap patch AD (center + 4 + 4 diagonal taps of the *warped*
+image, `calc_cost.cu:96-223`) is a 3×3 box filter over the per-pixel AD
+volume, identical for locally-translational warps.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from .image import bilinear_sample, projective_warp_mxu
+from .image import bilinear_sample
 
-__all__ = ["plane_sweep_cost", "accumulate_cost", "warp_coords",
-           "warp_shift_bounds_np"]
+__all__ = ["plane_sweep_cost", "accumulate_cost", "warp_coords"]
 
 
 def warp_coords(a_mat: jax.Array, b_vec: jax.Array, inv_depths: jax.Array,
                 height: int, width: int) -> jax.Array:
-    """Warped pixel coordinates (D, H, W, 2) for each inverse-depth plane.
+    """Warped pixel coordinates (H, W, D, 2) for each inverse-depth plane.
 
     a_mat: (3,3) = K2 @ R_21 @ K1^-1;  b_vec: (3,) = K2 @ t_21;
     inv_depths: (D,).  x2_h = a_mat @ [u, v, 1] + b_vec * rho.
+    The 3×3 product is written out elementwise, so the coordinates are
+    exact fp32 whatever the backend's matmul precision. Points at or behind
+    the measurement camera (z <= 1e-6) get NaN coordinates, which sample as
+    out of view.
     """
-    u = jnp.arange(width, dtype=jnp.float32)
-    v = jnp.arange(height, dtype=jnp.float32)
-    uu, vv = jnp.meshgrid(u, v)  # (H, W)
-    base = jnp.einsum("ij,jhw->ihw", a_mat,
-                      jnp.stack([uu, vv, jnp.ones_like(uu)]))  # (3, H, W)
-    p = base[None] + b_vec[None, :, None, None] * inv_depths[:, None, None, None]
-    z = p[:, 2]
-    safe = jnp.where(jnp.abs(z) > 1e-6, z, 1e-6)
-    return jnp.stack([p[:, 0] / safe, p[:, 1] / safe], axis=-1)  # (D, H, W, 2)
+    f32 = jnp.float32
+    a = a_mat.astype(f32)
+    b = b_vec.astype(f32)
+    rho = inv_depths.astype(f32)
+    u = jnp.arange(width, dtype=f32)[None, :, None]
+    v = jnp.arange(height, dtype=f32)[:, None, None]
+    p = [a[i, 0] * u + a[i, 1] * v + a[i, 2] + b[i] * rho for i in range(3)]
+    front = p[2] > 1e-6
+    z = jnp.where(front, p[2], 1.0)
+    return jnp.where(front[..., None],
+                     jnp.stack([p[0] / z, p[1] / z], axis=-1), jnp.nan)
 
 
 def _box3(x: jax.Array) -> jax.Array:
-    """3x3 box filter over the last two dims (edge-replicated)."""
-    pads = [(0, 0)] * (x.ndim - 2) + [(1, 1), (1, 1)]
+    """3x3 box filter over the two leading dims (edge-replicated)."""
+    h, w = x.shape[0], x.shape[1]
+    pads = [(1, 1), (1, 1)] + [(0, 0)] * (x.ndim - 2)
     xp = jnp.pad(x, pads, mode="edge")
-    h, w = x.shape[-2], x.shape[-1]
     acc = jnp.zeros_like(x)
     for dy in range(3):
         for dx in range(3):
-            acc = acc + jax.lax.dynamic_slice_in_dim(
-                jax.lax.dynamic_slice_in_dim(xp, dy, h, axis=x.ndim - 2),
-                dx, w, axis=x.ndim - 1)
+            acc = acc + xp[dy:dy + h, dx:dx + w]
     return acc / 9.0
-
-
-def plane_sweep_cost_gather(ref: jax.Array, meas: jax.Array,
-                            a_mat: jax.Array, b_vec: jax.Array,
-                            inv_depths: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """Gather-based reference implementation of `plane_sweep_cost` (direct
-    transliteration of the per-(pixel, hypothesis) texture fetch). Kept as
-    the semantic oracle for tests; far too slow on TPU for production."""
-    h, w = ref.shape
-    coords = warp_coords(a_mat, b_vec, inv_depths, h, w)  # (D, H, W, 2)
-    warped = bilinear_sample(meas, coords, fill=jnp.nan)  # (D, H, W)
-    ad = jnp.abs(warped - ref[None])
-    valid = jnp.isfinite(ad)
-    ad = jnp.where(valid, ad, 0.0)
-    # patch aggregation: 9-tap average, out-of-view taps contribute 0;
-    # validity is the CENTER sample (the CUDA kernel's -1 sentinel,
-    # `calc_cost.cu:96-233`)
-    cost = _box3(ad)
-    return (jnp.moveaxis(cost, 0, -1),  # (H, W, D)
-            jnp.moveaxis(valid, 0, -1))
-
-
-def _interp_matrix(pos: jax.Array, size: int, dtype=None) -> jax.Array:
-    """Banded bilinear interpolation matrices from sample positions.
-
-    pos: (D, N_out) fractional source coordinates. Returns (D, N_out, size)
-    hat-function weights: W[d, i, j] = max(0, 1 - |pos[d, i] - j|). Row sums
-    are 1 strictly inside [0, size-1], and fall to 0 outside — which is
-    exactly the coverage signal the validity channel needs.
-
-    The |pos - j| subtraction runs in pos's dtype (fp32: positions reach
-    several hundred pixels, bf16 would quantize them by whole pixels); the
-    weights themselves live in [0, 1], so `dtype` (the matmul storage dtype)
-    is applied at the output — the (D, N, size) matrices are the largest
-    arrays the sweep touches and never need to exist in fp32.
-    """
-    grid = jnp.arange(size, dtype=pos.dtype)
-    w = jnp.maximum(0.0, 1.0 - jnp.abs(pos[..., None] - grid))
-    return w if dtype is None else w.astype(dtype)
-
-
-def _sweep_positions(a_mat: jax.Array, b_vec: jax.Array, inv_depths: jax.Array,
-                     height: int, width: int):
-    """Per-depth separable sweep positions + the affine quad-test coeffs.
-
-    Returns pos_x (D, W), pos_y (D, H) fp32 (−1e9 where the plane is behind
-    the camera, so every in-bounds test fails), and mx (D, 3, W), my (D, 3, H)
-    with m_i(d, q, p) = mx[d, i, p] + my[d, i, q] — the aligned-image validity
-    half-plane tests (see `plane_sweep_cost`'s derivation notes).
-    """
-    f32 = jnp.float32
-    u = jnp.arange(width, dtype=f32)
-    v = jnp.arange(height, dtype=f32)
-    c = jnp.linalg.solve(a_mat.astype(f32), b_vec.astype(f32))
-    rho = inv_depths.astype(f32)
-    den = 1.0 + c[2] * rho
-    s = jnp.where(jnp.abs(den) > 1e-3, 1.0 / den, 0.0)
-    depth_ok = den > 1e-3
-    pos_x = (u[None, :] + (c[0] * rho)[:, None]) * s[:, None]
-    pos_y = (v[None, :] + (c[1] * rho)[:, None]) * s[:, None]
-    pos_x = jnp.where(depth_ok[:, None], pos_x, -1e9)
-    pos_y = jnp.where(depth_ok[:, None], pos_y, -1e9)
-    a = a_mat.astype(f32)
-    # m_i = a[i,0]·px + a[i,1]·py + a[i,2]; split the broadcast-sum so the
-    # kernel only streams (3, W) + (3, H) per depth
-    mx = a[:, 0][None, :, None] * pos_x[:, None, :] + a[:, 2][None, :, None]
-    my = a[:, 1][None, :, None] * pos_y[:, None, :]
-    return pos_x, pos_y, mx, my
-
-
-def warp_shift_bounds_np(a_mat: np.ndarray, height: int, width: int,
-                         step: int = 16) -> tuple[float, float]:
-    """Host-side bound on the alignment warp's per-pass shifts (max |g - u|,
-    max |y_in - v| over a coarse pixel grid) — the pipeline uses it to pick
-    the banded-shift warp kernel vs the exact matmul warp per frame."""
-    m = np.asarray(a_mat, np.float64)
-    u = np.arange(0, width, step, dtype=np.float64)
-    v = np.arange(0, height, step, dtype=np.float64)
-    r = v
-    den_v = m[1, 1] - r * m[2, 1]
-    deg = np.abs(den_v) < 1e-3
-    safe = np.where(deg, 1.0, den_v)
-    v_ur = ((r[:, None] * (m[2, 0] * u[None, :] + m[2, 2])
-             - m[1, 0] * u[None, :] - m[1, 2]) / safe[:, None])
-    zd = m[2, 0] * u[None, :] + m[2, 1] * v_ur + m[2, 2]
-    zd = np.where(np.abs(zd) > 1e-6, zd, 1e-6)
-    g = (m[0, 0] * u[None, :] + m[0, 1] * v_ur + m[0, 2]) / zd
-    dx = np.abs(g - u[None, :])[~deg[:, None] & np.ones_like(g, bool)]
-    zz = m[2, 0] * u[None, :] + m[2, 1] * v[:, None] + m[2, 2]
-    zz = np.where(np.abs(zz) > 1e-6, zz, 1e-6)
-    y_in = (m[1, 0] * u[None, :] + m[1, 1] * v[:, None] + m[1, 2]) / zz
-    dy = np.abs(y_in - v[:, None])
-    return (float(dx.max()) if dx.size else np.inf, float(dy.max()))
 
 
 def plane_sweep_cost(ref: jax.Array, meas: jax.Array,
                      a_mat: jax.Array, b_vec: jax.Array,
                      inv_depths: jax.Array,
-                     out_dtype=None,
-                     use_pallas: bool | None = None,
-                     banded_warp: bool | None = None) -> tuple[jax.Array, jax.Array]:
-    """One measurement frame's cost slice — MXU formulation (gather-free).
+                     out_dtype=None) -> tuple[jax.Array, jax.Array]:
+    """One measurement frame's cost slice.
 
     ref, meas: (H, W) float intensity images. a_mat = K₂R₂₁K₁⁻¹ (3,3),
     b_vec = K₂t₂₁ (3,). Returns (cost (H, W, D), valid (H, W, D)) where
-    invalid = warped outside the measurement image.
-
-    Derivation: the per-hypothesis sample point is x₂ ~ A x₁ + b ρ. With
-    meas_aligned(x) := meas(A x) (one projective warp, the only gather),
-    sampling meas at A x₁ + b ρ equals sampling meas_aligned at
-    A⁻¹(A x₁ + b ρ) ~ x₁ + c ρ with c = A⁻¹ b. Projecting,
-        u₂ = (u + c₀ρ_d) s_d,  v₂ = (v + c₁ρ_d) s_d,  s_d = 1/(1 + c₂ρ_d)
-    — a per-depth uniform scale+translation, separable in u and v, so the
-    sweep is two batched matmuls against banded interpolation matrices.
+    invalid = the warped center sample falls outside the measurement image.
+    The patch cost averages 9 taps with out-of-view taps contributing 0 (the
+    CUDA kernel's clamped taps and -1 sentinel, `calc_cost.cu:96-233`).
+    Sampling and AD run in fp32; the cost is stored in `out_dtype`.
     """
     h, w = ref.shape
-    d = inv_depths.shape[0]
     f32 = jnp.float32
-    cdt = f32 if out_dtype is None else out_dtype
-
-    if use_pallas is None:
-        use_pallas = (jax.default_backend() == "tpu"
-                      and w % 128 == 0 and h % 8 == 0)
-    if banded_warp is None:
-        # exact matmul warp unless the caller explicitly opted in: the banded
-        # kernel silently loses coverage for shifts beyond its band, so
-        # arbitrary-homography callers must gate on `warp_shift_bounds_np`
-        # themselves (the pipeline does; ADVICE r3: default off)
-        banded_warp = False
-
-    # --- align: meas_aligned(x) = meas(A x) via the two-pass warp (returns
-    # image·coverage and coverage); renormalize ONCE on the (H, W) image —
-    # interior coverage is exactly 1, boundary pixels are excluded
-    # analytically below, so no per-hypothesis division is ever needed
-    if banded_warp and use_pallas:
-        from .pallas_kernels import projective_warp_banded
-        meas_cov, cov_pw = projective_warp_banded(meas.astype(f32), a_mat)
-    else:
-        meas_cov, cov_pw = projective_warp_mxu(meas.astype(f32), a_mat)
-    meas_al = meas_cov / jnp.maximum(cov_pw, 1e-3)
-
-    pos_x, pos_y, mx, my = _sweep_positions(a_mat, b_vec, inv_depths, h, w)
-    depth_ok = pos_x[:, 0] > -1e8   # -1e9 marks behind-camera planes
-    if use_pallas:
-        # fused per-depth Pallas kernel: interpolation-matrix generation, the
-        # two banded matmuls, validity, AD, and the 3x3 box aggregation all
-        # happen on one VMEM-resident (H, W) plane per depth — the XLA
-        # formulation below materializes ~10 full (D, H, W) volumes for the
-        # same math (measured 5.0 ms vs the kernel's sub-2 ms at 480x640x128)
-        from .pallas_kernels import plane_sweep_pallas
-        cost_dhw = plane_sweep_pallas(ref.astype(f32), meas_al, pos_x, pos_y,
-                                      mx, my, out_dtype=cdt)
-        cost_hwd = jnp.transpose(cost_dhw, (1, 2, 0))   # (H, W, D)
-        zero = jnp.asarray(0.0, cdt)
-        return jnp.maximum(cost_hwd, zero), cost_hwd >= 0
-
-    u = jnp.arange(w, dtype=f32)
-    v = jnp.arange(h, dtype=f32)
-    wx = _interp_matrix(pos_x, w, cdt)                           # (D, W, W)
-    wy = _interp_matrix(pos_y, h, cdt)                           # (D, H, H)
-
-    # --- sweep the aligned image through the banded matmuls.
-    # In bf16 mode the matmul operands and the (D, H, W) intermediates are
-    # bf16 (weight quantization ≈ 0.4 % ⇒ sub-intensity-level error); the
-    # MXU accumulates in fp32 either way.
-    # The interpolation matrices are banded hat functions — every output
-    # element sums at most TWO nonzero products — so accumulating directly
-    # in the storage dtype is numerically safe and avoids materializing the
-    # (D, H, W) intermediates in fp32 (an extra full-volume HBM round
-    # trip each; the sweep is bandwidth-bound).
-    img = meas_al.astype(cdt)                                    # (H, W)
-    rowp = jnp.einsum("hw,dpw->dhp", img, wx,
-                      preferred_element_type=cdt)                # (D, H, W)
-    warped = jnp.einsum("dhp,dqh->dqp", rowp, wy,
-                        preferred_element_type=cdt)              # (D, H, W)
-
-    # --- analytic validity (replaces sweeping a coverage channel — half the
-    # matmul work). A sweep sample at aligned coords (px, py) is valid iff
-    # (a) its 2x2 hat support lies inside the aligned image: px ∈ [0, W-1],
-    #     py ∈ [0, H-1] (row sums of wx/wy are exactly 1 there), and
-    # (b) the aligned image is itself valid at (px, py): the pre-warp covers
-    #     exactly {x : A x inside the measurement image}, a convex quad, so
-    #     membership is affine half-plane tests on m = A (px, py, 1)ᵀ.
-    #     Boundary samples ride the cov-renormalized pre-warp value (the
-    #     same half-supported estimate the gather oracle's own bilinear
-    #     boundary taps produce), so no extra shrink margin is applied.
-    inb_x = (pos_x >= 0.0) & (pos_x <= w - 1.0)                  # (D, W)
-    inb_y = (pos_y >= 0.0) & (pos_y <= h - 1.0)                  # (D, H)
-    mrg = 0.0
-    # m_i(d, q, p) = mx[d, i, p] + my[d, i, q] (from `_sweep_positions`)
-    m0 = mx[:, 0, None, :] + my[:, 0, :, None]
-    m1 = mx[:, 1, None, :] + my[:, 1, :, None]
-    m2 = mx[:, 2, None, :] + my[:, 2, :, None]
-    quad = ((m2 > 1e-6)
-            & (m0 >= mrg * m2) & (m0 <= (w - 1 - mrg) * m2)
-            & (m1 >= mrg * m2) & (m1 <= (h - 1 - mrg) * m2))
-    valid = (quad & inb_x[:, None, :] & inb_y[:, :, None]
-             & depth_ok[:, None, None])
-    warped = jnp.where(valid, warped, jnp.asarray(jnp.nan, cdt))
-
-    # patch cost = 9-tap average with invalid taps contributing 0, validity
-    # = CENTER sample only — the reference kernel's semantics
-    # (`calc_cost.cu:96-233`: clamped texture taps, -1 sentinel only when
-    # the warped center leaves the view); identical to the Pallas kernel
-    ad = jnp.abs(warped - ref.astype(cdt)[None])
-    vald = ~jnp.isnan(ad)
-    ad = jnp.where(vald, ad, jnp.asarray(0.0, cdt))
-    cost = _box3(ad)
-    return (jnp.moveaxis(cost, 0, -1),  # (H, W, D)
-            jnp.moveaxis(vald, 0, -1))
+    coords = warp_coords(a_mat, b_vec, inv_depths, h, w)        # (H, W, D, 2)
+    warped = bilinear_sample(meas.astype(f32), coords, fill=jnp.nan)
+    ad = jnp.abs(warped - ref.astype(f32)[..., None])
+    valid = jnp.isfinite(ad)
+    cost = _box3(jnp.where(valid, ad, 0.0))
+    return cost.astype(out_dtype or f32), valid
 
 
 def accumulate_cost(mean_cost: jax.Array, count: jax.Array,

@@ -1,10 +1,10 @@
-"""FAST-9/16 corner detection, fully vectorized for TPU.
+"""FAST-9/16 corner detection, fully vectorized.
 
 Replaces the reference's per-keyframe `cv::FAST(img, keypoints, 20, true)`
 (`/root/reference/server_pose_graph/src/server_keyframe.cpp:267-290`) and the
 agent front-end's feature detection (contract: max 150 features, 30 px min
 spacing, `config/euroc/euroc_config.yaml:44-45`). Instead of a scalar scan,
-the segment test runs as 16 shifted-image comparisons on the VPU; spatial
+the segment test runs as 16 shifted-image elementwise comparisons; spatial
 spreading uses grid-cell winners (jit-stable) rather than a greedy mask.
 """
 

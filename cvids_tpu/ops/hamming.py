@@ -1,10 +1,10 @@
 """Batched 256-bit binary-descriptor Hamming matching.
 
-TPU-native replacement for the reference's brute-force BRIEF matcher
+Array-program replacement for the reference's brute-force BRIEF matcher
 (`/root/reference/server_pose_graph/src/server_keyframe.cpp:294-378`):
 descriptors are ``uint32 (N, 8)`` arrays (the AgentMsg wire format packs them
-as 4×int64 per descriptor, `agent_msg/msg/AgentMsg.msg:11-14`; we use the
-natural TPU layout), distance is XOR + popcount, and the whole N×M distance
+as 4×int64 per descriptor, `agent_msg/msg/AgentMsg.msg:11-14`; we use
+uint32 words), distance is XOR + popcount, and the whole N×M distance
 matrix is produced in one fused pass — no per-feature loops.
 """
 

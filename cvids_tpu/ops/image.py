@@ -92,76 +92,6 @@ def bilinear_sample(img: jax.Array, xy: jax.Array, fill: float = 0.0) -> jax.Arr
     return jnp.where(inside, out, fill)
 
 
-def warp_pass_positions(m: jax.Array, h: int, w: int,
-                        eps: float = 1e-3) -> tuple[jax.Array, jax.Array]:
-    """Two-pass (Catmull-Smith) resampling positions for the projective map
-    [x_in, y_in, 1] ~ m @ [u, v, 1].
-
-    Returns (g (H, W), y_in (H, W)) fp32: pass 1 samples input row r at
-    horizontal position g[r, u]; pass 2 samples the intermediate at vertical
-    position y_in[v, u]. Degenerate pass-1 rows get g = -1e9 (no coverage).
-    """
-    f32 = jnp.float32
-    m = m.astype(f32)
-    u = jnp.arange(w, dtype=f32)
-    v = jnp.arange(h, dtype=f32)
-    r = jnp.arange(h, dtype=f32)
-    den_v = m[1, 1] - r * m[2, 1]                                  # (H,)
-    deg = jnp.abs(den_v) < eps
-    safe_den = jnp.where(deg, 1.0, den_v)
-    v_ur = ((r[:, None] * (m[2, 0] * u[None, :] + m[2, 2])
-             - m[1, 0] * u[None, :] - m[1, 2]) / safe_den[:, None])  # (H, W)
-    zd = m[2, 0] * u[None, :] + m[2, 1] * v_ur + m[2, 2]
-    zd = jnp.where(jnp.abs(zd) > 1e-6, zd, 1e-6)
-    g = (m[0, 0] * u[None, :] + m[0, 1] * v_ur + m[0, 2]) / zd       # (H, W)
-    g = jnp.where(deg[:, None], -1e9, g)                             # kill row
-    zz = m[2, 0] * u[None, :] + m[2, 1] * v[:, None] + m[2, 2]
-    zz = jnp.where(jnp.abs(zz) > 1e-6, zz, 1e-6)
-    y_in = (m[1, 0] * u[None, :] + m[1, 1] * v[:, None] + m[1, 2]) / zz
-    return g, y_in
-
-
-def projective_warp_mxu(img: jax.Array, m: jax.Array, eps: float = 1e-3,
-                        weight_dtype=jnp.bfloat16) -> tuple[jax.Array, jax.Array]:
-    """Gather-free projective warp: out(u, v) = img(x_in(u, v), y_in(u, v))
-    with [x_in, y_in, 1] ~ m @ [u, v, 1], as two banded-matmul resampling
-    passes (Catmull & Smith 1980 two-pass warping, exact for bilinear taps).
-
-    Per-element gathers run at ~1 element/cycle on TPU; this runs on the MXU.
-    Pass 1 resamples each input row r horizontally at positions
-    g(u, r) = x_in(u, v(u, r)) where v(u, r) solves y_in(u, v) = r (a linear
-    fraction, inverted analytically); pass 2 resamples columns at y_in(u, v).
-
-    The (H, W, W) / (W, H, H) hat-weight tensors are the warp's entire HBM
-    cost (~1.4 GB fp32 at 480x640); positions stay fp32 but the banded
-    weights live in [0, 1] and are stored in `weight_dtype` (bf16 halves the
-    traffic; the coverage renormalization absorbs the ~0.4 % weight
-    quantization, and the MXU accumulates fp32 either way).
-
-    Returns (warped_times_coverage (H, W), coverage (H, W)): taps outside the
-    image contribute zero weight, so dividing by the coverage renormalizes
-    and coverage < 1 marks boundary/out-of-view pixels. Rows where the
-    pass-1 inversion degenerates (|m11 - r·m21| < eps) get zero coverage.
-    """
-    h, w = img.shape
-    f32 = jnp.float32
-    wdt = weight_dtype
-    img = img.astype(f32)
-    u = jnp.arange(w, dtype=f32)
-    r = jnp.arange(h, dtype=f32)
-    g, y_in = warp_pass_positions(m, h, w, eps)
-
-    wg = jnp.maximum(0.0, 1.0 - jnp.abs(g[..., None] - u)).astype(wdt)
-    stack = jnp.stack([img, jnp.ones_like(img)]).astype(wdt)         # (2, H, W)
-    tmp = jnp.einsum("crx,rux->cru", stack, wg,
-                     preferred_element_type=f32)                     # (2, H, W)
-
-    wv = jnp.maximum(0.0, 1.0 - jnp.abs(y_in.T[..., None] - r)).astype(wdt)
-    out = jnp.einsum("cru,uvr->cvu", tmp.astype(wdt), wv,
-                     preferred_element_type=f32)                     # (2, H, W)
-    return out[0], out[1]
-
-
 def downsample2x(img: jax.Array) -> jax.Array:
     """2×2 average-pool downsample of (..., H, W); H, W must be even."""
     h, w = img.shape[-2] // 2, img.shape[-1] // 2

@@ -6,7 +6,7 @@ open_chisel/include/open_chisel/marching_cubes/MarchingCubes.h:35-130`, the
 splits into 6 tetrahedra whose 16-case triangle table is generated
 programmatically below (no hand-transcribed 256×16 table to get wrong), the
 output is watertight across cube and chunk boundaries, and the per-tet work
-is a fixed-shape masked gather — ideal for vmap/VPU. Cost: ≤12 triangles per
+is a fixed-shape masked gather — ideal for vmap. Cost: ≤12 triangles per
 cube vs MC's ≤5, irrelevant at mesh-publishing rates.
 
 Convention: sdf < 0 is inside the object; triangles are oriented so normals

@@ -7,7 +7,7 @@ The reference verifies loop-closure candidates with `cv::findFundamentalMat`
 both are re-designed as *fixed-shape hypothesis sweeps*: sample all K minimal
 sets up front, solve them all in one batched linear-algebra pass, score all
 hypotheses against all points with one matrix of residuals, and pick the
-argmax — the TPU-native formulation (SURVEY.md §7 "hard parts" #2).
+argmax — the fixed-shape formulation (SURVEY.md §7 "hard parts" #2).
 
 All functions operate on normalized (undistorted) image coordinates.
 """

@@ -2,10 +2,10 @@
 
 Redesign of the reference's `sgm2` CUDA kernels and `filterCostKernel`
 (`/root/reference/server_pose_graph/src/dense_mapping/calc_cost.cu:366-546,
-235-283`): each direction is a `lax.scan` along rows/columns whose carry is a
-whole (H, D) (or (W, D)) slice — the per-step work is pure VPU element-wise
-min algebra over the full cross-section, so the sequential axis costs W (or
-H) fused steps instead of per-pixel threads.
+235-283`). Each scan orientation runs forward and backward together: on a
+GPU as one Pallas kernel that walks the scan axis with the (X, D) carry on
+chip (`ops.sgm_triton`), elsewhere as a `lax.scan` whose carry is the whole
+(X, D) slice (`_scan_bidir`, also the kernel's reference).
 
 Penalties follow the reference semantics: P1 for ±1 disparity moves, P2
 (image-gradient modulated) for larger jumps, and the classic min-normalization
@@ -18,7 +18,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-__all__ = ["sgm_aggregate", "sgm_aggregate_parts", "wta_depth", "sgm_depth"]
+from .sgm_triton import sgm_scan_bidir
+
+__all__ = ["sgm_aggregate", "sgm_aggregate_parts", "sgm_penalties",
+           "scan_pair", "scan_pair_plain", "wta_depth", "sgm_depth"]
 
 
 def _shift_d(l: jax.Array, s: int) -> jax.Array:
@@ -45,11 +48,10 @@ def _scan_bidir(cost: jax.Array, p1: jax.Array, p2_eff: jax.Array,
     """Forward + backward directional passes along axis 0 of (S, X, D) cost,
     returned pre-summed: agg_fwd + agg_bwd.
 
-    The recurrence is inherently sequential, but each step's work (a handful
-    of element-wise mins on an (X, D) slice) is microseconds of VPU time, so
-    the scan is step-overhead bound. Two tricks halve and then quarter the
-    step count: both directions ride one scan (independent carries), and
-    `unroll` recurrence steps run inside each scan body.
+    The recurrence is sequential and each step's work (a handful of
+    element-wise mins on an (X, D) slice) is small, so the scan is
+    step-overhead bound: both directions ride one scan (independent
+    carries), and `unroll` recurrence steps run inside each scan body.
     """
     s = cost.shape[0]
     n = s - 1
@@ -92,8 +94,7 @@ def _scan_bidir(cost: jax.Array, p1: jax.Array, p2_eff: jax.Array,
 def sgm_aggregate(cost: jax.Array, grad: jax.Array,
                   pi1: float = 16.0, pi2: float = 64.0,
                   tau_so: float = 8.0, q1: float = 1.0, q2: float = 1.0,
-                  penalty_scale: jax.Array | None = None,
-                  use_pallas: bool | None = None) -> jax.Array:
+                  penalty_scale: jax.Array | None = None) -> jax.Array:
     """4-direction SGM aggregation of (H, W, D) cost.
 
     Penalty modulation mirrors `sgm2`'s alpha/tau_so scheme in spirit: where
@@ -106,72 +107,56 @@ def sgm_aggregate(cost: jax.Array, grad: jax.Array,
     `sgm_stereo_mapper.cpp:55-123`).
     """
     parts = sgm_aggregate_parts(cost, grad, pi1=pi1, pi2=pi2, tau_so=tau_so,
-                                q1=q1, q2=q2, penalty_scale=penalty_scale,
-                                use_pallas=use_pallas)
-    out = parts[0]
-    for p in parts[1:]:
-        out = out + p
-    return out
+                                q1=q1, q2=q2, penalty_scale=penalty_scale)
+    return parts[0] + parts[1]
 
 
 def sgm_aggregate_parts(cost: jax.Array, grad: jax.Array,
                         pi1: float = 16.0, pi2: float = 64.0,
                         tau_so: float = 8.0, q1: float = 1.0, q2: float = 1.0,
-                        penalty_scale: jax.Array | None = None,
-                        use_pallas: bool | None = None
-                        ) -> tuple[jax.Array, ...]:
-    """The directional parts of `sgm_aggregate`, not yet summed, so a fused
-    consumer (the Pallas WTA kernel) can do the final add in registers
-    instead of extra full-volume HBM passes. On the Pallas path this is the
-    four directions (L→R, R→L, T→B, B→T); on the lax.scan fallback the two
-    bidirectional halves. All (H, W, D)."""
+                        penalty_scale: jax.Array | None = None
+                        ) -> tuple[jax.Array, jax.Array]:
+    """The two orientation parts of `sgm_aggregate`, not yet summed:
+    (L→R + R→L, T→B + B→T), each (H, W, D), so the consumer can sum them
+    in fp32 inside its own fusion."""
+    p2_map, p1 = sgm_penalties(grad, cost.dtype, pi1, pi2, tau_so, q1, q2,
+                               penalty_scale)
+    return (scan_pair(cost, p2_map, p1, axis=1),
+            scan_pair(cost, p2_map, p1, axis=0))
+
+
+def sgm_penalties(grad: jax.Array, dtype, pi1: float = 16.0,
+                  pi2: float = 64.0, tau_so: float = 8.0, q1: float = 1.0,
+                  q2: float = 1.0, penalty_scale: jax.Array | None = None):
+    """(P2 map (H, W), scalar P1) in `dtype` for `scan_pair`."""
     big_jump = grad > tau_so
-    p2_map = jnp.where(big_jump, pi2 / q2, pi2).astype(cost.dtype)
-    p1_map = jnp.where(big_jump, pi1 / q1, pi1).astype(cost.dtype)
+    p2_map = jnp.where(big_jump, pi2 / q2, pi2).astype(dtype)
+    p1_map = jnp.where(big_jump, pi1 / q1, pi1).astype(dtype)
     if penalty_scale is not None:
-        p2_map = p2_map * penalty_scale.astype(cost.dtype)
-        p1_map = p1_map * penalty_scale.astype(cost.dtype)
-    # use a scalar p1 per scan step (same modulation source as p2): we pass
-    # p1 via broadcasting inside the scan by folding it into p2_eff's shape.
-    h, w, d = cost.shape
-
-    # left->right + right->left (one scan over W), then top->bottom +
-    # bottom->top (one scan over H)
-    p1_s = jnp.mean(p1_map)  # P1 is effectively constant in the reference
-    if use_pallas is None:
-        use_pallas = _pallas_ok(cost)
-    if use_pallas:
-        # Both orientations ride the FAST axis-0 kernel; the horizontal one
-        # goes through an (H,W,D)<->(W,H,D) swap. Counter-intuitively this
-        # beats the transpose-free axis-1 kernel by 0.5 ms/frame at the
-        # production geometry (1.19 vs 1.72 ms net): the axis-1 kernel's
-        # per-column [:, k] slices cut across the (u, D) VMEM tiles (1/16
-        # sublane utilization), while XLA's transposes largely fold into
-        # the pallas operand/result layouts. Bit-exact vs the axis-1 kernel
-        # (which stays available for layout-constrained callers).
-        # Each call returns its direction pair pre-summed: the WTA's fused
-        # reduction then reads 2 volumes instead of 4 (0.3 ms of HBM
-        # traffic; bf16 pair-sum rounding is far below argmin margins).
-        from .pallas_kernels import sgm_scan_bidir
-        h_sum = jnp.swapaxes(
-            sgm_scan_bidir(jnp.swapaxes(cost, 0, 1), p2_map.T, p1_s,
-                           summed=True), 0, 1)
-        v_sum = sgm_scan_bidir(cost, p2_map, p1_s, summed=True)
-        return h_sum, v_sum
-    c_lr = jnp.moveaxis(cost, 1, 0)
-    p2_lr = p2_map.T  # (W, H)
-    part_h = jnp.moveaxis(_scan_bidir(c_lr, p1_s, p2_lr), 0, 1)
-    part_v = _scan_bidir(cost, p1_s, p2_map)
-    return part_h, part_v
+        p2_map = p2_map * penalty_scale.astype(dtype)
+        p1_map = p1_map * penalty_scale.astype(dtype)
+    return p2_map, jnp.mean(p1_map)  # P1 is effectively constant upstream
 
 
-def _pallas_ok(cost: jax.Array) -> bool:
-    # the Pallas grid-as-scan kernel needs real TPU tiling (D % 128,
-    # X % sublane); fall back to the lax.scan form elsewhere
-    h, w, d = cost.shape
-    sub = 16 if cost.dtype == jnp.bfloat16 else 8
-    return (jax.default_backend() == "tpu" and d % 128 == 0
-            and h % sub == 0 and w % sub == 0)
+def scan_pair_plain(cost: jax.Array, p2_map: jax.Array, p1: jax.Array,
+                    axis: int) -> jax.Array:
+    """Forward + backward aggregation of (H, W, D) `cost` along `axis`,
+    summed, as a `lax.scan` (the SGM kernel's reference)."""
+    if axis == 0:
+        return _scan_bidir(cost, p1, p2_map)
+    return jnp.swapaxes(
+        _scan_bidir(jnp.swapaxes(cost, 0, 1), p1, p2_map.T), 0, 1)
+
+
+def scan_pair(cost: jax.Array, p2_map: jax.Array, p1: jax.Array,
+              axis: int) -> jax.Array:
+    """`scan_pair_plain`'s contract. Lowered for a CUDA GPU this is the
+    Pallas kernel (`ops.sgm_triton`); for any other platform the
+    `lax.scan` form."""
+    return jax.lax.platform_dependent(
+        cost, p2_map, p1,
+        default=lambda c, p2, q: scan_pair_plain(c, p2, q, axis),
+        cuda=lambda c, p2, q: sgm_scan_bidir(c, p2, q, axis=axis))
 
 
 def wta_depth(cost: jax.Array, valid_count: jax.Array | None = None,
@@ -184,9 +169,8 @@ def wta_depth(cost: jax.Array, valid_count: jax.Array | None = None,
     d = cost.shape[-1]
     idx = jnp.argmin(cost, axis=-1)
     c0 = jnp.min(cost, axis=-1)
-    # parabola through (idx-1, idx, idx+1); neighbors fetched by one-hot
-    # contraction over the lane axis (lane gathers are slow on TPU, masked
-    # reductions are one fused VPU pass)
+    # parabola through (idx-1, idx, idx+1); the neighbours are fetched by a
+    # masked reduction over the depth axis, which fuses with the argmin pass
     lane = jnp.arange(d)
     im = jnp.clip(idx - 1, 0, d - 1)
     ip = jnp.clip(idx + 1, 0, d - 1)
@@ -214,16 +198,11 @@ def sgm_depth(cost: jax.Array, grad: jax.Array, inv_depths: jax.Array,
               **kw):
     """Aggregate + WTA + map to inverse depth. Returns (inv_depth, conf).
 
-    Aggregation runs in the cost dtype (bf16-safe: min algebra); WTA's
-    subpixel parabola always runs fp32 — XLA's fused reduction passes over
-    the summed volume measured 4x FASTER than the hand-written Pallas WTA
-    tile kernel on the v5e (0.5 ms vs 2.2 ms at 480x640x128;
-    dev/bench_kernels.py), so the Pallas WTA is no longer on the default
-    path (kept for tests/compat)."""
-    parts = sgm_aggregate_parts(cost, grad, **kw)
-    agg = sum(p.astype(jnp.float32) for p in parts)
+    Aggregation is stored in the cost dtype (bf16-safe: min algebra); the
+    two parts are summed and the WTA's subpixel parabola runs in fp32."""
+    part_h, part_v = sgm_aggregate_parts(cost, grad, **kw)
+    agg = part_h.astype(jnp.float32) + part_v.astype(jnp.float32)
     idx_f, conf = wta_depth(agg, valid_count, min_count)
-    d = inv_depths.shape[0]
     step = inv_depths[1] - inv_depths[0]
     inv_depth = inv_depths[0] + idx_f * step
     return inv_depth, conf

@@ -2,7 +2,7 @@
 
 The multi-host scaling argument (BASELINE.json: >= 0.7 efficiency 1 -> 4
 hosts) rests on the per-solve collective volume staying small relative to
-ICI/DCN bandwidth. This module extracts every cross-device collective from a
+NVLink/network bandwidth. This module extracts every cross-device collective from a
 compiled XLA program's HLO and reports its payload size, so the dryrun can
 PRINT the numbers instead of asserting them by argument (VERDICT r3 weak #4
 / next-round item 4).

@@ -9,8 +9,9 @@ The reference scales by OS processes + ROS (`launch/multi_agent_server.launch`,
   optimization: the CG matvec's segment-sums become `psum`-style collectives
   that XLA inserts automatically from sharding annotations.
 
-Everything works on any device set — a TPU pod slice over ICI or N virtual
-CPU devices (`--xla_force_host_platform_device_count`) for testing.
+Everything works on any device set — several GPUs of one host, whose NVLink
+joins every card to every other so a 1-D mesh over all of them fits, or N
+virtual CPU devices (`--xla_force_host_platform_device_count`) for testing.
 """
 
 from __future__ import annotations
@@ -57,24 +58,22 @@ def sharded_dense_fuse(mesh: Mesh, cfg):
     """Batched dense-depth fusion with the agent axis sharded over devices.
 
     Maps `dense.estimator.fuse_measurement` over a leading agent dimension
-    and shards it — each device fuses its agents' frames locally (the
-    reference's one-GPU-per-agent-stream pattern, without the GPUs).
+    (a multiple of the mesh size) and shards it: inside `shard_map` each
+    device fuses its own agents' frames, so no collective runs and the SGM
+    kernel sees only device-local data (the reference's one-GPU-per-agent
+    pattern). Every input and output is sharded on the agent axis.
     """
     from ..dense import estimator
 
     axis = mesh.axis_names[0]
     shard = NamedSharding(mesh, P(axis))
-
     vfuse = jax.vmap(lambda st, img, a, b: estimator.fuse_measurement(
         cfg, st, img, a, b))
-
-    def tree_shard(tree):
-        return jax.tree_util.tree_map(lambda _: shard, tree)
-
-    def fn(states, imgs, a_mats, b_vecs):
-        return vfuse(states, imgs, a_mats, b_vecs)
-
-    return jax.jit(fn)
+    # check_vma=False: the SGM kernel's pallas_call declares no per-axis
+    # variance for its outputs
+    fn = jax.shard_map(vfuse, mesh=mesh, in_specs=P(axis), out_specs=P(axis),
+                       check_vma=False)
+    return jax.jit(fn, in_shardings=shard, out_shardings=shard)
 
 
 def pad_edges_for_sharding(edges: opt.PoseGraphEdges, n_shards: int):

@@ -8,7 +8,7 @@ BA called for by BASELINE.json (camera system replicated, landmarks sharded):
   and their Schur contribution to the reduced camera system locally;
 - ONE `psum` per LM iteration all-reduces the packed reduced system
   (≈ 2·(15K)² + 2·15K + 1 floats for a K-keyframe window — independent of
-  landmark count, which is what keeps scaling efficiency high over ICI/DCN);
+  landmark count, which is what keeps scaling efficiency high over NVLink or the network);
 - the small (15K)-wide damped solve and the accept/reject logic run
   replicated; landmark back-substitution is local.
 

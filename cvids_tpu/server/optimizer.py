@@ -1,6 +1,6 @@
 """4-DoF (yaw + translation) pose-graph optimizer, matrix-free Gauss-Newton.
 
-TPU-native replacement for the reference's Ceres problem
+Array-program replacement for the reference's Ceres problem
 (`/root/reference/server_pose_graph/src/server_pose_graph.cpp:1430-1706`):
 per-keyframe yaw (angle-wrapped) + translation blocks, pitch/roll frozen from
 VIO, sequential edges to up to 6 same-client predecessors

@@ -30,6 +30,7 @@ from ..geometry.hostmath import quat_to_matrix_np
 from ..io.msgs import KeyframePacket
 from ..mapping import mesh as mesh_mod
 from ..mapping.tsdf import TsdfConfig, TsdfVolume
+from ..utils.precision import full_precision
 from ..utils.tracing import Tracer
 from .posegraph import CollaborativePoseGraph, ServerConfig
 from . import vocab as vocab_mod
@@ -93,6 +94,7 @@ class CollaborativeServer:
         unbounded host-side — the reference uses depth-2000 ROS queues)."""
         self.queue.append(pkt)
 
+    @full_precision
     def process(self, max_items: int | None = None) -> int:
         """Drain the queue (AgentProcess + PublishProcess combined)."""
         n = 0
@@ -255,22 +257,11 @@ class CollaborativeServer:
         t_mr = r_wc_new.T @ (t_wc_ref - t_wc_new)
         a_mat = k @ r_mr @ np.linalg.inv(k)
         b_vec = k @ t_mr
-        # alignment-warp kernel choice: the banded-shift kernel covers the
-        # usual consecutive-keyframe rotations; large-rotation frames take
-        # the exact matmul warp (host-side decision, a_mat is numpy here)
-        from ..ops.costvolume import warp_shift_bounds_np
-        # fine sampling (step=4) + an 8 px margin against the kernel's
-        # 96/48 bands: the true shift maximum between grid samples of the
-        # smooth rational shift field stays well inside the margin
-        # (ADVICE r3: the old step=16 grid left only 2 px)
-        dx, dy = warp_shift_bounds_np(a_mat, cfg.dense.height, cfg.dense.width,
-                                      step=4)
-        banded = bool(dx < 88.0 and dy < 40.0)
         meas_j = self._undistort(cid, pkt.image)
         a_j = jnp.asarray(a_mat, jnp.float32)
         b_j = jnp.asarray(b_vec, jnp.float32)
-        ds.state = estimator.fuse_measurement(
-            cfg.dense, ds.state, meas_j, a_j, b_j, banded_warp=banded)
+        ds.state = estimator.fuse_measurement(cfg.dense, ds.state, meas_j,
+                                              a_j, b_j)
         ds.last_meas, ds.last_a, ds.last_b = meas_j, a_j, b_j
         ds.fused += 1
         ds.since_ref += 1
@@ -367,10 +358,12 @@ class CollaborativeServer:
 
     # ---------- outputs ----------
 
+    @full_precision
     def optimize(self):
         with self.tracer.span("optimize"):
             self.graph.optimize()
 
+    @full_precision
     def save_mesh(self, path: str):
         """The `/Chisel/SaveMesh` service equivalent."""
         with self.tracer.span("mesh"):

@@ -51,6 +51,7 @@ from ..geometry.hostmath import (
 )
 from ..io.msgs import KeyframePacket
 from ..ops import hamming, ransac
+from ..utils.precision import full_precision
 from . import optimizer as opt
 from . import pcm as pcm_mod
 from . import vocab as vocab_mod
@@ -255,6 +256,7 @@ class CollaborativePoseGraph:
             finally:
                 self._opt_running.clear()
 
+    @full_precision
     def flush(self, final: bool = True):
         """Resolve in-flight loop verifications, wait for any background
         solve and quiesce the periodic worker (it resumes on the next
@@ -314,6 +316,7 @@ class CollaborativePoseGraph:
 
     # ---------- ingestion ----------
 
+    @full_precision
     def add_keyframe(self, pkt: KeyframePacket) -> dict:
         with self._lock:
             return self._add_keyframe_locked(pkt)
@@ -748,6 +751,7 @@ class CollaborativePoseGraph:
         self._chain_cache[cid] = (key, chain)
         return chain
 
+    @full_precision
     def optimize(self) -> bool:
         """4-DoF solve over aligned keyframes + drift propagation
         (`Optimize4DoF`, `server_pose_graph.cpp:1107-1815`).

@@ -1,4 +1,4 @@
-"""Binary bag-of-words vocabulary for place recognition, TPU-batched.
+"""Binary bag-of-words vocabulary for place recognition, batched on device.
 
 Replaces the reference's vendored DBoW2 stack (`/root/reference/
 server_pose_graph/ThirdParty/DBoW/TemplatedVocabulary.h`, k=10 L=6 pretrained

@@ -6,7 +6,7 @@ mosaic, and an `s` key that exports per-agent TUM trajectories + triggers
 the mesh save (`/root/reference/server_pose_graph/include/server_plotter.h:
 158-273,286-600`) plus rviz marker topics (`utility/server_visualization.cpp`)
 and the Chisel mesh/chunk-box topics (`chisel_ros/src/ChiselServer.cpp:
-49-108`). A TPU pod has no display, so the equivalent here is browser-based:
+49-108`). A headless server has no display, so the equivalent here is browser-based:
 
 - `export_viewer_html` writes ONE self-contained HTML file (no external
   assets, pure WebGL) with orbit/pan/zoom, per-agent trajectories + frusta,
@@ -116,7 +116,7 @@ def collect_volume_state(vol, max_tris: int = 60000) -> dict:
 
 def export_viewer_html(path: str, server=None, volume=None,
                        state: dict | None = None,
-                       title: str = "cvids-tpu viewer") -> str:
+                       title: str = "cvids viewer") -> str:
     """Write the self-contained interactive viewer to `path`.
 
     Pass either a server (+ optional volume) or a pre-collected `state`.
@@ -148,7 +148,7 @@ class LiveViewer:
     """
 
     def __init__(self, state_fn, host: str = "127.0.0.1", port: int = 0,
-                 title: str = "cvids-tpu live viewer"):
+                 title: str = "cvids live viewer"):
         import http.server
 
         html = (_HTML.replace("__TITLE__", _html_escape(title))

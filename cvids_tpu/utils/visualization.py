@@ -3,7 +3,7 @@
 The reference renders a live Pangolin window with per-client trajectories,
 camera frusta, loop-closure edges and a frame mosaic
 (`/root/reference/server_pose_graph/include/server_plotter.h:286-691`) plus
-rviz markers (`utility/server_visualization.cpp`). A TPU pod has no display,
+rviz markers (`utility/server_visualization.cpp`). A headless server has no display,
 so the same content renders headlessly to PNG via matplotlib when available
 (always importable; plotting functions no-op cleanly without it).
 """

@@ -2,7 +2,7 @@
 
 This is Layer A of SURVEY.md — external to the reference repo (a VINS-Mono
 class estimator, contract defined by `agent_msg/msg/AgentMsg.msg` + the
-`config/euroc/*.yaml` feature-tracker/solver keys) — built here TPU-first:
+`config/euroc/*.yaml` feature-tracker/solver keys) — built here as batched array programs:
 
 - feature maintenance: pyramidal KLT tracking + grid-spread FAST
   re-detection, all batched (`ops.klt`, `ops.fast`);
@@ -29,6 +29,7 @@ from ..geometry.hostmath import quat_to_matrix_np
 from ..io.msgs import KeyframePacket
 from ..ops import brief, fast, klt
 from ..utils.config import AgentConfig
+from ..utils.precision import full_precision
 from . import imu as imu_mod
 from . import window_ba as ba
 
@@ -611,6 +612,7 @@ class AgentFrontend:
 
     # ---------- camera-rate tracking + keyframe selection ----------
 
+    @full_precision
     def process_frame(self, timestamp: float, image: np.ndarray,
                       imu_gyr: np.ndarray, imu_acc: np.ndarray,
                       imu_dts: np.ndarray) -> KeyframePacket | None:

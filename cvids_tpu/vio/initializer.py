@@ -7,7 +7,7 @@ VINS bootstrap: visual structure-from-motion gives up-to-scale poses, then
 (1) gyro bias is calibrated by matching visual relative rotations against
 IMU preintegrated rotations, and (2) a linear system recovers per-keyframe
 velocity, the gravity direction, and metric scale. This module supplies both
-steps TPU-style: fixed-shape masked least squares, one jitted solve each —
+steps as fixed-shape masked least squares, one jitted solve each —
 no RANSAC loops, no incremental factorization.
 
 Inputs are body-frame window poses (any consistent up-to-scale frame) and the

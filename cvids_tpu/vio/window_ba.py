@@ -1,8 +1,8 @@
 """Sliding-window visual-inertial bundle adjustment, JAX-native.
 
 The reference relies on an external VINS-Mono-class agent estimator
-(SURVEY.md layer A — contract only); this module supplies it, re-designed for
-TPU: fixed-capacity state arrays with validity masks (jit-stable shapes), the
+(SURVEY.md layer A — contract only); this module supplies it, re-designed as an
+array program: fixed-capacity state arrays with validity masks (jit-stable shapes), the
 whole factor graph evaluated as one batched residual function, Jacobians by
 autodiff, and a damped Gauss-Newton (LM) loop as a `lax.scan` with
 `where`-selected accept/reject — no data-dependent control flow.

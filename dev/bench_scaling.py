@@ -10,7 +10,7 @@ sweep DOES establish on any device count:
   - results are device-count invariant (equivalence),
   - the compiled HLO contains the expected cross-device collectives
     (all-reduce), i.e. the program really is distributed, and the same
-    code targets a TPU pod slice over ICI unchanged.
+    code targets several GPUs unchanged.
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
      PYTHONPATH= python dev/bench_scaling.py

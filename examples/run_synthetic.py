@@ -5,7 +5,7 @@ The `collaborative_server_node` equivalent (`/root/reference/
 server_pose_graph/src/collaborative_server_node.cpp` + the multi-agent
 launch): N agents stream keyframes into the collaborative server, which
 aligns their submaps, optimizes the global 4-DoF graph, and reports ATE
-against ground truth. Runs on CPU or TPU.
+against ground truth. Runs on the CPU or a GPU.
 
     python examples/run_synthetic.py --agents 3 --duration 30
 """

@@ -218,11 +218,14 @@ def test_validate_photometric(rng):
 
 
 def test_mxu_sweep_matches_gather_oracle(rng):
-    """The production (matmul) plane sweep must match the direct gather
-    transliteration: identically for pure-translation geometry, and within
-    interpolation-path tolerance once the projective pre-alignment is active
-    (two-pass resampling samples along the warped scanline; on smooth images
-    the difference is sub-intensity-level)."""
+    """The production (gather) plane sweep must match the banded-matmul
+    formulation (`banded_sweep`): identically for pure-translation geometry,
+    and within interpolation-path tolerance once that formulation's
+    projective pre-alignment is active (two-pass resampling samples along
+    the warped scanline; on smooth images the difference is
+    sub-intensity-level)."""
+    from banded_sweep import plane_sweep_cost_banded
+
     def angax(ax, a):
         c, s = np.cos(a), np.sin(a)
         if ax == 0:
@@ -237,7 +240,7 @@ def test_mxu_sweep_matches_gather_oracle(rng):
     # identity rotation: formulations agree essentially exactly
     a_mat = jnp.asarray(k @ np.linalg.inv(k))
     b_vec = jnp.asarray(k @ np.array([-0.1, 0.02, 0.01], np.float32))
-    c1, v1 = costvolume.plane_sweep_cost_gather(ref, meas, a_mat, b_vec, inv)
+    c1, v1 = plane_sweep_cost_banded(ref, meas, a_mat, b_vec, inv)
     c2, v2 = costvolume.plane_sweep_cost(ref, meas, a_mat, b_vec, inv)
     both = np.asarray(v1) & np.asarray(v2)
     assert both.mean() > 0.7
@@ -248,7 +251,7 @@ def test_mxu_sweep_matches_gather_oracle(rng):
     r21 = angax(0, 0.03) @ angax(1, -0.05)
     a_mat = jnp.asarray(k @ r21 @ np.linalg.inv(k))
     b_vec = jnp.asarray(k @ np.array([0.15, -0.05, 0.03], np.float32))
-    c1, v1 = costvolume.plane_sweep_cost_gather(ref, meas, a_mat, b_vec, inv)
+    c1, v1 = plane_sweep_cost_banded(ref, meas, a_mat, b_vec, inv)
     c2, v2 = costvolume.plane_sweep_cost(ref, meas, a_mat, b_vec, inv)
     both = np.asarray(v1) & np.asarray(v2)
     assert both.mean() > 0.5

@@ -2,7 +2,8 @@
 
 Exercises the true multi-HOST path — separate OS processes, a coordinator,
 and cross-process collectives — that the virtual 8-device mesh cannot: on a
-TPU pod each host runs exactly this initialization with its local chips.
+multi-host GPU cluster each host runs exactly this initialization with its
+local cards.
 Skips (not fails) when the installed jax lacks a CPU cross-process
 collectives backend.
 """
@@ -31,7 +32,7 @@ WORKER = textwrap.dedent("""
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import Mesh, PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     devs = np.asarray(jax.devices())          # 4 global (2 per process)
     assert devs.size == 4, devs

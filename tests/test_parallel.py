@@ -91,6 +91,9 @@ def test_sharded_dense_fuse_agents(rng):
     out = fuse(states, refs_s, a, b)
     assert np.asarray(out.num_frames).tolist() == [1] * n_agents
     assert np.isfinite(np.asarray(out.filt.mu)).all()
+    # the agent axis stays sharded: each device holds its own agent's state
+    assert out.filt.mu.sharding.is_equivalent_to(shard, 3)
+    assert len(out.mean_cost.addressable_shards) == 8
 
 
 def test_sharded_window_schur_matches_single_device(rng):
@@ -114,3 +117,16 @@ def test_sharded_window_schur_matches_single_device(rng):
     lmv = np.asarray(state.lm_valid)
     assert np.allclose(np.asarray(sh_out.lm)[lmv],
                        np.asarray(ref_out.lm)[lmv], atol=1e-1)
+
+
+def test_production_phases_four_devices_match_one():
+    """The sharded programs `chip_smoke.py --four-cards` runs (small shapes):
+    a 4-device mesh gives the 1-device results within `compare_phases`'
+    tolerances, and the audit names every program."""
+    import __graft_entry__ as ge
+
+    res_4 = ge.production_phases(make_mesh(4), small=True)
+    res_1 = ge.production_phases(make_mesh(1), n_agents=4, small=True)
+    assert len(res_4["audits"]) == 3
+    for key, (summary, ok, tol) in ge.compare_phases(res_4, res_1).items():
+        assert ok, f"{key}: {summary} (tolerance {tol})"

@@ -6,23 +6,13 @@ import pytest
 from cvids_tpu.camera import PinholeCamera
 from cvids_tpu.dense import estimator
 from cvids_tpu.io import multiagent, render
+from cvids_tpu.io.multiagent import look_at
 from cvids_tpu.io.synthetic import Trajectory, quat_from_matrix_np
 from cvids_tpu.mapping.tsdf import TsdfConfig
 from cvids_tpu.server import pipeline, posegraph, vocab
 
 
 H, W = 120, 160
-
-
-def look_at(eye, target):
-    z = target - eye
-    z = z / np.linalg.norm(z)
-    x = np.cross(z, [0, 0, 1.0])
-    if np.linalg.norm(x) < 1e-6:
-        x = np.array([1.0, 0, 0])
-    x /= np.linalg.norm(x)
-    y = np.cross(z, x)
-    return np.stack([x, y, z], 1)
 
 
 @pytest.mark.slow
@@ -126,3 +116,24 @@ def test_disturbance_injection(rng, tmp_path):
         if ok:
             import os
             assert os.path.getsize(p) > 1000
+
+
+def test_rendered_orbit_stream_is_consistent():
+    """Each packet's window points, seen from the packet's own local-frame
+    pose, project to its normalized uv; the local frames hide a per-agent
+    yaw + translation from the world."""
+    from cvids_tpu.geometry.hostmath import quat_to_matrix_np
+
+    cam = PinholeCamera.create(46.1, 46.1, 40.0, 30.0, (0, 0, 0, 0), 80, 60)
+    packets, gt, descs = multiagent.rendered_orbit_stream(
+        cam, n_agents=2, n_kf=3, n_landmarks=300, seed=1)
+    assert len(packets) == 6 and descs.shape == (300, 8)
+    assert [p.timestamp for p in packets] == sorted(p.timestamp for p in packets)
+    for p in packets:
+        assert p.image.shape == (60, 80) and len(p.win_uv) >= 10
+        r_lb = quat_to_matrix_np(p.q_wb)
+        pts_c = (p.win_pts3d - p.p_wb) @ r_lb @ np.asarray(p.r_cb).T
+        np.testing.assert_allclose(pts_c[:, :2] / pts_c[:, 2:3], p.win_uv,
+                                   atol=1e-4)
+        eye, _ = gt[(p.client_id, round(p.timestamp * 10))]
+        assert np.linalg.norm(p.p_wb - eye) > 0.5   # local != world

@@ -1,6 +1,7 @@
 import numpy as np
 import pytest
 
+from cvids_tpu.io.multiagent import look_at
 from cvids_tpu.mapping import mesh, tsdf
 
 
@@ -30,17 +31,6 @@ def render_sphere_depth(center, radius, r_wc, t_wc):
     depth[hit] = t_hit * z_dir[hit]
     depth[depth <= 0] = np.nan
     return depth.reshape(H, W)
-
-
-def look_at(eye, target):
-    z = target - eye
-    z = z / np.linalg.norm(z)
-    x = np.cross(z, [0, 0, 1.0])
-    if np.linalg.norm(x) < 1e-6:
-        x = np.array([1.0, 0, 0])
-    x /= np.linalg.norm(x)
-    y = np.cross(z, x)
-    return np.stack([x, y, z], 1)  # camera axes as columns: r_wc
 
 
 @pytest.fixture(scope="module")
